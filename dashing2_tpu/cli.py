@@ -611,7 +611,7 @@ def _main(argv: Optional[Sequence[str]] = None) -> int:
     prof = contextlib.nullcontext()
     if profdir:
         import jax
-        prof = jax.profiler.trace(profdir)  # XLA/TPU trace for xprof
+        prof = jax.profiler.trace(profdir)  # device trace for xprof
     with prof:
         return _run(a, top, opts, groups, nq, presketched, phase)
 

@@ -232,8 +232,8 @@ def compressed_ab_measures32(gtc, ltc, m: int, b: float, fd_level: float,
                              table=None, gbinv=None,
                              gb_form: str = "product"):
     """f32 variant of compressed_ab_measures operating on integer gt/lt
-    COUNT matrices, used for every a/b-quantized fastcmp path (the f64
-    epilogue's emulated pow on TPU would dominate the counts kernels).
+    COUNT matrices, used for every a/b-quantized fastcmp path (README
+    deviation: f32 estimator epilogues).
     g_b evaluates one of two bit-selected forms:
 
     * gb_form='product' (the nibble path): bit-PRODUCT of c_k — pure
@@ -354,9 +354,8 @@ def bbit_measures32(eqc, m: int, fd_level: float, lhcard, rhcard,
 def full_setsketch_measures32(gt, lt, m: int, lhcard, rhcard,
                               measure: Measure, k: int, xp=np):
     """f32 variant of full_setsketch_measures on integer gt/lt COUNT
-    matrices — the DEFAULT mode's production epilogue (an emulated-f64
-    epilogue on TPU costs ~35 ms at N=10240, more than the SWAR counts
-    kernel; the emitted matrix is f32 anyway). (gt + lt) sums first so
+    matrices — the DEFAULT mode's production epilogue (the emitted
+    matrix is f32 anyway). (gt + lt) sums first so
     tiles and their transposes commute exactly in the per-tile fused
     path."""
     f32 = np.float32

@@ -5,7 +5,7 @@ Reference: src/ssi.h:40-539. Structure kept: nLSH tables, table i groups
 (contiguous register groups first, pseudo-randomly sampled groups beyond
 m/g — ssi.h:369-392); shape heuristics from cmp_core.cpp:757-770.
 
-TPU-native redesign: keys for ALL items and subtables are computed as one
+Vectorized redesign: keys for ALL items and subtables are computed as one
 vectorized hash pass over the register matrix (wanghash chain instead of
 the reference's CEHasher/XXH64 mixes — candidate sets are a retrieval
 heuristic, not an output format). Bucket construction is sort/group on the

@@ -1,7 +1,7 @@
 """Host-side (numpy) 64-bit hash functions: the ground truth.
 
 These replicate the hash chain the reference applies to k-mers so that the
-TPU device kernels (which re-implement them in u32 limb arithmetic,
+device kernels (which re-implement them in u32 limb arithmetic,
 ops/hashes.py) can be validated bit-for-bit against this module, and this
 module validated against the published algorithms.
 

@@ -3,7 +3,7 @@
 The reference streams exact set/count-dict comparisons from their cache
 files when the corpus is not RAM-resident (cmp_core.cpp:518-572 opens
 the per-item .kmerset64/.kmercountdict files; wcompare.cpp:145-187 is
-the FILE* sorted-merge). This module is the TPU-framework analogue: a
+the FILE* sorted-merge). This module is the analogue: a
 DiskSortedSet reads bounded chunks with plain pread-style fromfile
 calls — no mmap (so an RLIMIT-capped process stays capped) and no
 whole-set materialization ever.

@@ -27,7 +27,7 @@ def alloc(shape, dtype, ram_limit: int = DEFAULT_THRESHOLD,
     if ram_limit <= 0 or nbytes <= ram_limit:
         out = np.empty(shape, dtype)
     else:
-        fd, path = tempfile.mkstemp(prefix="d2tpu_sigs_", suffix=".mm")
+        fd, path = tempfile.mkstemp(prefix="d2_sigs_", suffix=".mm")
         try:
             os.ftruncate(fd, nbytes)
             out = np.memmap(path, dtype=dtype, mode="r+", shape=shape)

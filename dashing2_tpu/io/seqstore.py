@@ -47,7 +47,7 @@ class SequenceStore:
             self._offsets.append(self._offsets[-1] + len(seq))
 
     def _spill(self) -> None:
-        fd, path = tempfile.mkstemp(prefix="d2tpu_seqs_", suffix=".bin")
+        fd, path = tempfile.mkstemp(prefix="d2_seqs_", suffix=".bin")
         self._file = os.fdopen(fd, "w+b")
         os.unlink(path)
         for s in self._ram:

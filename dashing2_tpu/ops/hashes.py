@@ -1,7 +1,7 @@
 """Device (jnp) implementations of the 64-bit hash chain.
 
 Primary forms take/return ``jnp.uint64`` arrays (XLA lowers u64 element ops
-to 32-bit limb sequences on TPU; measured ~180G hashes/s on one v5e core).
+to 32-bit limb sequences).
 Limb forms (suffix ``_limbs``) operate on (hi, lo) uint32 pairs for use
 inside Pallas kernels, where 64-bit integers are unavailable.
 

@@ -1,4 +1,4 @@
-"""K-mer encoding: the TPU-native equivalent of bonsai's Encoder/RollingHasher.
+"""K-mer encoding: the device equivalent of bonsai's Encoder/RollingHasher.
 
 Reference behavior (call sites: /root/reference/src/fastxsketch.cpp:383-424,
 /root/reference/src/d2.h:94-99,257-271; the bonsai submodule itself is empty
@@ -7,14 +7,14 @@ semantics: 2-bit DNA with reverse-complement canonicalization, reduced
 protein alphabets via base-b packing, window-w lexicographic minimizers,
 spaced seeds, and a rolling hash for k beyond the exact-coding capacity).
 
-TPU-first design
-----------------
+Device design
+-------------
 * Host side packs ASCII to small integer codes (numpy LUT) and chunks
   sequences into fixed-shape (nchunks, chunk_len) blocks with a (k-1)-base
   halo so every k-mer of the original sequence appears in exactly one chunk.
   Static shapes keep everything jit-compatible.
 * The device kernel materializes all k-mer codes of a chunk with k shifted
-  adds over the code array — O(k) full-width VPU ops, no sequential scan.
+  adds over the code array — O(k) full-width vector ops, no sequential scan.
   Reverse-complement codes accumulate in the same loop; canonical k-mer is
   the elementwise min.
 * Window minimizers (w > k) use a sliding-window min (log-step shift-min),

@@ -1,642 +1,210 @@
-"""Pallas TPU kernels for the N^2 register-comparison hot path.
+"""Comparison engines for nibble registers (--fastcmp 0.5): exact int8
+one-hot products on the GPU's tensor cores.
 
-Engines, fastest first:
+* ``nibble_dots`` -- plain XLA, any A x B job, every platform:
+    eq[i,j] = onehot(A) . onehot(B)^T
+    gt[i,j] = onehot(A) . cumlt(B)^T    (cumlt[j, r, v] = [B[j,r] < v])
 
-* TRIANGULAR one-hot MXU matmuls for nibble registers (--fastcmp 0.5),
-  self-pairs only — the production engines (7-8 G unique-pairs/s at
-  N=10240, m=1024 on one v5e): lower-triangle block pairs map to a
-  static rectangular grid (block-rows u and T-1-u -> grid
-  (T/2, T+1, k)); ``_tri_eq_call`` computes eq with one int8 matmul per
-  pair tile, ``_tri_comb_call`` computes eq AND gt with one matmul via
-  the combined encoding ct = [b==v] - 128*[b<v] contracted in
-  64-register chunks (partial = eq - 128*gt decodes exactly with
-  shifts). ``tri_counts_tiles`` is the tile-level API the fused
-  production path consumes; ``counts_nibble_tri_self`` /
-  ``eq_nibble_tri_self`` assemble full count matrices.
+* ``tri_counts_tiles`` -- eq AND gt for self-pairs, the lower-triangle
+  block pairs of the (N, N) count matrices, one tile each: a Pallas
+  kernel through Triton. ONE int8 product per pair tile yields both
+  counts via the combined encoding ct = [b==v] - 128*[b<v], contracted
+  in 64-register chunks so each partial = eq_chunk - 128*gt_chunk
+  decodes exactly (eq_chunk <= 64 < 128) inside the K loop -- a fused
+  epilogue a cuBLAS GEMM cannot host. Half the MACs of the full square
+  and one product instead of two: 2.56 ms against 4.42 ms for the two
+  full-square dots at N=10240, m=1024 on an H100 80GB HBM3 at 700 W
+  (PERF.md). The eq-only job stays on ``nibble_dots``: there the plain
+  GEMM beat both a triangular kernel and triangular XLA strips end to
+  end on the same card.
 
-* ``counts_nibble_mxu`` — full-square MXU one-hot matmuls (A != B jobs,
-  small N, and the CPU fallback route):
-    eq[i,j]  = onehot(A) . onehot(B)^T
-    gt[i,j]  = onehot(A) . cumlt(B)^T   (cumlt[j, r, v] = [B[j,r] < v])
-
-* ``gtlt_pallas`` / ``gtlt_self_pallas`` — VPU kernels for 64-bit
-  registers held as (hi, lo) u32 pairs.
-
-All fall back to interpret mode off-TPU so the CPU test mesh exercises
-identical code paths.
+The kernel compiles for the GPU only. Tests run it in the Pallas
+interpreter by setting ``INTERPRET = True`` explicitly.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple
+from typing import Tuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
+
+_TRI_BM = 1024    # assembly tile; T = Npad / bm must be even
+# kernel tiling: the fastest of 11 tilings swept on an H100 (PERF.md)
+_TB = 128         # kernel output sub-tile (rows and columns)
+_BK = 128         # contraction step of the kernel's K loop
+_WARPS = 8
+_STAGES = 4
+_CHUNK = 1024     # 64 registers * 16 levels between decodes
+INTERPRET = False
 
 
-def _on_tpu() -> bool:
-    return jax.devices()[0].platform == "tpu"
-
-
-def _gtlt_kernel(ah_ref, al_ref, bh_ref, bl_ref, gt_ref, lt_ref):
-    tm = ah_ref.shape[0]
-    bh = bh_ref[:]          # (TN, m)
-    bl = bl_ref[:]
-
-    # fori_loop (not a Python unroll: Mosaic compile time scales with the
-    # unrolled body) over A rows; one (TN, m) compare + lane reduction each
-    def body(i, _):
-        arh = ah_ref[pl.ds(i, 1), :]   # (1, m)
-        arl = al_ref[pl.ds(i, 1), :]
-        hi_eq = arh == bh
-        gt = ((arh > bh) | (hi_eq & (arl > bl))).astype(jnp.int32)
-        lt = ((arh < bh) | (hi_eq & (arl < bl))).astype(jnp.int32)
-        gt_ref[pl.ds(i, 1), :] = jnp.sum(gt, axis=1, dtype=jnp.int32)[None, :]
-        lt_ref[pl.ds(i, 1), :] = jnp.sum(lt, axis=1, dtype=jnp.int32)[None, :]
-        return 0
-
-    jax.lax.fori_loop(0, tm, body, 0)
-
-
-@functools.partial(jax.jit, static_argnames=("tm", "tn", "interpret"))
-def _gtlt_pallas_call(ah, al, bh, bl, *, tm: int, tn: int, interpret: bool):
-    n, m = ah.shape
-    mm = bh.shape[0]
-    # grid: j outer, i inner -> the B tile stays VMEM-resident across the
-    # whole inner sweep (pallas skips re-fetch when the block index map
-    # yields the same block)
-    grid = (mm // tn, n // tm)
-    out_shape = [jax.ShapeDtypeStruct((n, mm), jnp.int32)] * 2
-    return pl.pallas_call(
-        _gtlt_kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((tm, m), lambda j, i: (i, 0)),
-            pl.BlockSpec((tm, m), lambda j, i: (i, 0)),
-            pl.BlockSpec((tn, m), lambda j, i: (j, 0)),
-            pl.BlockSpec((tn, m), lambda j, i: (j, 0)),
-        ],
-        out_specs=[
-            pl.BlockSpec((tm, tn), lambda j, i: (i, j)),
-            pl.BlockSpec((tm, tn), lambda j, i: (i, j)),
-        ],
-        out_shape=out_shape,
-        interpret=interpret,
-    )(ah, al, bh, bl)
-
-
-def _pad_rows(x: np.ndarray, mult: int):
-    pad = (-x.shape[0]) % mult
-    if pad:
-        x = np.concatenate([x, np.zeros((pad,) + x.shape[1:], x.dtype)])
-    return x, pad
-
-
-def gtlt_pallas(a_u64, b_u64, tm: int = 256, tn: int = 256
-                ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """(gt, lt) i32 counts for u64 register matrices (N, m) x (M, m)."""
-    a = np.asarray(a_u64, dtype=np.uint64)
-    b = np.asarray(b_u64, dtype=np.uint64)
-    n0, m0 = a.shape[0], b.shape[0]
-    # Mosaic tiling: output blocks need (>=8, >=128); shrink tiles toward
-    # the (padded) array sizes for small inputs.
-    tm = max(8, min(tm, 1 << max(n0 - 1, 1).bit_length()))
-    tn = max(128, min(tn, 1 << max(m0 - 1, 1).bit_length()))
-    a, _ = _pad_rows(a, tm)
-    b, _ = _pad_rows(b, tn)
-    ah = (a >> np.uint64(32)).astype(np.uint32)
-    al = a.astype(np.uint32)
-    bh = (b >> np.uint64(32)).astype(np.uint32)
-    bl = b.astype(np.uint32)
-    # The kernel is pure u32/i32; disable x64 around the pallas call so
-    # Mosaic's grid/loop indices stay 32-bit (x64 mode makes them i64,
-    # which Mosaic cannot legalize).
-    with jax.enable_x64(False):
-        gt, lt = _gtlt_pallas_call(jnp.asarray(ah), jnp.asarray(al),
-                                   jnp.asarray(bh), jnp.asarray(bl),
-                                   tm=tm, tn=tn, interpret=not _on_tpu())
-    return gt[:n0, :m0], lt[:n0, :m0]
-
-
-# ----------------------------------------------------------------------
-# triangular self-pairs kernel (all-pairs of one set)
-# ----------------------------------------------------------------------
-#
-# For a self-comparison lt(i, j) == gt(j, i), so only the upper-triangle
-# tile blocks need computing — exactly the reference's N(N-1)/2 pair
-# walk (src/emitrect.cpp:269-325) instead of the full square. A 1-D grid
-# walks the T(T+1)/2 tile coordinates delivered via scalar prefetch; each
-# step computes (gt, lt) for tile (i, j), and the full matrices are
-# reassembled with one precomputed gather (lower blocks are the upper
-# blocks' lt, transposed).
-
-@functools.lru_cache(maxsize=16)
-def _tri_tiles(nt: int) -> Tuple[np.ndarray, np.ndarray]:
-    ii, jj = np.triu_indices(nt)
-    return ii.astype(np.int32), jj.astype(np.int32)
-
-
-@functools.lru_cache(maxsize=8)
-def _tri_gather_index(npad: int, t: int) -> np.ndarray:
-    """Flat gather indices assembling full gt (npad, npad) from
-    concat([gt_tiles, lt_tiles_transposed]) of shape (2K, t, t)."""
-    nt = npad // t
-    ii, jj = _tri_tiles(nt)
-    K = len(ii)
-    tile_of = np.empty((nt, nt), np.int64)
-    for k in range(K):
-        tile_of[ii[k], jj[k]] = k           # upper: gt tile as-is
-        tile_of[jj[k], ii[k]] = K + k       # lower: transposed lt tile
-    x = np.arange(npad)
-    bi = x // t
-    r = x % t
-    # full_gt[x, y] = src[tile_of[bi, bj], r, c]
-    return (tile_of[bi[:, None], bi[None, :]] * (t * t)
-            + r[:, None] * t + r[None, :]).astype(np.int32)
-
-
-@functools.partial(jax.jit, static_argnames=("t", "interpret"))
-def _tri_gtlt_call(ii, jj, ah, al, *, t: int, interpret: bool):
-    K = ii.shape[0]
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(K,),
-        in_specs=[
-            pl.BlockSpec((t, ah.shape[1]), lambda k, ii, jj: (ii[k], 0)),
-            pl.BlockSpec((t, ah.shape[1]), lambda k, ii, jj: (ii[k], 0)),
-            pl.BlockSpec((t, ah.shape[1]), lambda k, ii, jj: (jj[k], 0)),
-            pl.BlockSpec((t, ah.shape[1]), lambda k, ii, jj: (jj[k], 0)),
-        ],
-        out_specs=[
-            pl.BlockSpec((1, t, t), lambda k, ii, jj: (k, 0, 0)),
-            pl.BlockSpec((1, t, t), lambda k, ii, jj: (k, 0, 0)),
-        ],
-    )
-
-    def kernel(ii_ref, jj_ref, ah_ref, al_ref, bh_ref, bl_ref,
-               gt_ref, lt_ref):
-        del ii_ref, jj_ref
-        bh = bh_ref[:]
-        bl = bl_ref[:]
-
-        def body(i, _):
-            arh = ah_ref[pl.ds(i, 1), :]                        # (1, m)
-            arl = al_ref[pl.ds(i, 1), :]
-            # NOTE: |/& form, not jnp.where — Mosaic cannot lower a
-            # vector select on i1 operands ("unsupported target bitwidth
-            # for truncation")
-            hi_eq = arh == bh
-            gt = (arh > bh) | (hi_eq & (arl > bl))
-            lt = (arh < bh) | (hi_eq & (arl < bl))
-            gt_ref[0, pl.ds(i, 1), :] = jnp.sum(
-                gt.astype(jnp.int32), axis=1, dtype=jnp.int32)[None, :]
-            lt_ref[0, pl.ds(i, 1), :] = jnp.sum(
-                lt.astype(jnp.int32), axis=1, dtype=jnp.int32)[None, :]
-            return 0
-
-        jax.lax.fori_loop(0, t, body, 0)
-
-    out_shape = [jax.ShapeDtypeStruct((K, t, t), jnp.int32)] * 2
-    return pl.pallas_call(kernel, grid_spec=grid_spec, out_shape=out_shape,
-                          interpret=interpret)(ii, jj, ah, al, ah, al)
-
-
-@functools.partial(jax.jit, static_argnames=("t",))
-def _tri_assemble(gt_tiles, lt_tiles, idx, *, t: int):
-    src = jnp.concatenate([gt_tiles, jnp.swapaxes(lt_tiles, 1, 2)])
-    return src.reshape(-1)[idx]
-
-
-def gtlt_self_pallas(a_u64, t: int = 256) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """(gt, lt) i32 counts for all pairs of one u64 register matrix (N, m),
-    computing only upper-triangle tiles (~half the full-square work).
-    lt = gt.T exactly."""
-    a = np.asarray(a_u64, dtype=np.uint64)
-    n0 = a.shape[0]
-    t = max(8, min(t, 1 << max(n0 - 1, 1).bit_length()))
-    a, _ = _pad_rows(a, t)
-    npad = a.shape[0]
-    ah = (a >> np.uint64(32)).astype(np.uint32)
-    al = a.astype(np.uint32)
-    ii, jj = _tri_tiles(npad // t)
-    idx = _tri_gather_index(npad, t)
-    with jax.enable_x64(False):
-        gt_tiles, lt_tiles = _tri_gtlt_call(
-            jnp.asarray(ii), jnp.asarray(jj), jnp.asarray(ah),
-            jnp.asarray(al), t=t, interpret=not _on_tpu())
-        gt = _tri_assemble(gt_tiles, lt_tiles, jnp.asarray(idx), t=t)
-    return gt[:n0, :n0], gt[:n0, :n0].T
-
-
-# ----------------------------------------------------------------------
-# single-word integer registers (compressed fastcmp paths)
-# ----------------------------------------------------------------------
-
-def _int_counts_kernel(a_ref, b_ref, eq_ref, gt_ref, lt_ref):
-    tm = a_ref.shape[0]
-    b = b_ref[:]
-
-    def body(i, _):
-        ar = a_ref[pl.ds(i, 1), :]
-        eq_ref[pl.ds(i, 1), :] = jnp.sum(
-            (ar == b).astype(jnp.int32), axis=1, dtype=jnp.int32)[None, :]
-        gt_ref[pl.ds(i, 1), :] = jnp.sum(
-            (ar > b).astype(jnp.int32), axis=1, dtype=jnp.int32)[None, :]
-        lt_ref[pl.ds(i, 1), :] = jnp.sum(
-            (ar < b).astype(jnp.int32), axis=1, dtype=jnp.int32)[None, :]
-        return 0
-
-    jax.lax.fori_loop(0, tm, body, 0)
-
-
-@functools.partial(jax.jit, static_argnames=("tm", "tn", "interpret"))
-def _int_counts_call(a, b, *, tm: int, tn: int, interpret: bool):
-    n, m = a.shape
-    mm = b.shape[0]
-    grid = (mm // tn, n // tm)
-    out_shape = [jax.ShapeDtypeStruct((n, mm), jnp.int32)] * 3
-    return pl.pallas_call(
-        _int_counts_kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((tm, m), lambda j, i: (i, 0)),
-            pl.BlockSpec((tn, m), lambda j, i: (j, 0)),
-        ],
-        out_specs=[pl.BlockSpec((tm, tn), lambda j, i: (i, j))] * 3,
-        out_shape=out_shape,
-        interpret=interpret,
-    )(a, b)
-
-
-def counts_int_pallas(a, b, tm: int = 16, tn: int = 512):
-    """(eq, gt, lt) i32 counts for single-word integer register matrices
-    (u8/u16/u32), Pallas VPU kernel. Unsigned compares are done in a
-    widened signed type so Mosaic's i8/i16 vector compares stay exact."""
-    a = np.asarray(a)
-    b = np.asarray(b)
-    # widen u8 -> i16, u16/u32 -> i32 (order-preserving, Mosaic-friendly)
-    wide = {np.dtype(np.uint8): np.int16, np.dtype(np.uint16): np.int32,
-            np.dtype(np.uint32): np.int64}[a.dtype]
-    if wide == np.int64:
-        # u32 needs 64-bit signed to preserve order; route via the u64 path
-        gt, lt = gtlt_pallas(a.astype(np.uint64), b.astype(np.uint64),
-                             tm=tm, tn=tn)
-        eq = a.shape[1] - gt - lt
-        return eq, gt, lt
-    n0, m0 = a.shape[0], b.shape[0]
-    tm = max(8, min(tm, 1 << max(n0 - 1, 1).bit_length()))
-    tn = max(128, min(tn, 1 << max(m0 - 1, 1).bit_length()))
-    aw, _ = _pad_rows(a.astype(wide), tm)
-    bw, _ = _pad_rows(b.astype(wide), tn)
-    # padding rows are all-zero: they produce eq counts against real rows
-    # but are sliced away below
-    with jax.enable_x64(False):
-        eq, gt, lt = _int_counts_call(jnp.asarray(aw), jnp.asarray(bw),
-                                      tm=tm, tn=tn,
-                                      interpret=not _on_tpu())
-    return eq[:n0, :m0], gt[:n0, :m0], lt[:n0, :m0]
-
-
-# ----------------------------------------------------------------------
-# ceiling note: why there is NO word-width (default / fastcmp 1+2) engine
-# in this module
-# ----------------------------------------------------------------------
-#
-# The DEFAULT comparison mode (full f64/u64 registers, gt/lt estimator
-# cmp_core.cpp:458-494, and the OPH equality estimator :495-517) cannot
-# ride the MXU: an exact bilinear form for [a > b] over K levels needs
-# K dims per register (the strictly-lower-triangular ones matrix has
-# full rank), so one-hot matmuls only pay for nibble registers (K=16).
-# A hand-written triangular Pallas VPU row-loop kernel for rank-reduced
-# word registers was built and measured in round 3: 194 ms/matrix at
-# N=10240, m=1024 — losing to both XLA's circulant and the SWAR packed
-# engines in ops/cmp_kernels.py that serve these paths in production
-# (experiments/R3_RESULTS.md section 1). The rejected kernel lives in
-# experiments/tri_word_engine.py with its timing script.
-
-# ----------------------------------------------------------------------
-# triangular single-matmul MXU engine for nibble registers (self-pairs)
-# ----------------------------------------------------------------------
-#
-# The fastest engine for --fastcmp 0.5 all-pairs (measured 7.0 G unique
-# pairs/s at N=10240 m=1024 on one v5e vs 2.8 G for the full-square
-# 2-matmul form):
-#
-# * lower-triangle block pairs only (half-square work), mapped to a
-#   STATIC rectangular grid by pairing block-rows u and T-1-u:
-#   grid (T/2, T+1, K/bk) covers each pair exactly once;
-# * ONE int8 matmul yields both counts: one operand encodes
-#   ct[(r,v), j] = [b_jr == v] - 128*[b_jr < v]  (int8 {-128, 0, 1}),
-#   contracted in 64-register chunks (bk = 64*16 k-rows) so each
-#   partial = eq_chunk - 128*gt_chunk is exactly decodable
-#   (eq_chunk <= 64 < 128):  gt_c = (127 - partial) >> 7,
-#   eq_c = partial + (gt_c << 7), accumulated on the VPU;
-# * BOTH operands are built TRANSPOSED, (16m, N) register-major: from
-#   a.T the encode intermediate is (m, 16, N) whose minor dim is N — no
-#   lane padding (an (..., 16)-minor intermediate would be padded
-#   16->128 by the TPU layout, 8x traffic) and no relayout copy. The
-#   kernel contracts dimension 0 of both blocks.
-
-_TRI_BM = 1024    # block rows; T = Npad / bm must be even
-_TRI_BK = 1024    # 64 registers * 16 levels per k-step (decode bound)
-
-
-def enc_onehot_T(a: jnp.ndarray, dt=jnp.int8) -> jnp.ndarray:
-    """(16m, N) one-hot of nibble registers, register-major k."""
+def enc_onehot(a: jnp.ndarray) -> jnp.ndarray:
+    """(N, 16m) int8 one-hot of nibble registers, register-major K."""
     n, m = a.shape
     lv = jnp.arange(16, dtype=jnp.uint8)
-    at = a.T
-    return (at[:, None, :] == lv[None, :, None]).astype(dt).reshape(
-        16 * m, n)
+    return (a[:, :, None] == lv).astype(jnp.int8).reshape(n, 16 * m)
 
 
-def enc_combined_T(a: jnp.ndarray) -> jnp.ndarray:
-    """(16m, N) int8 combined encoding [b==v] - 128*[b<v], reg-major."""
+def enc_combined(a: jnp.ndarray) -> jnp.ndarray:
+    """(N, 16m) int8 combined encoding [b==v] - 128*[b<v]."""
     n, m = a.shape
     lv = jnp.arange(16, dtype=jnp.uint8)
-    at = a.T
-    eq = (at[:, None, :] == lv[None, :, None]).astype(jnp.int8)
-    lt = (at[:, None, :] < lv[None, :, None]).astype(jnp.int8)
-    return (eq + lt * jnp.int8(-128)).reshape(16 * m, n)
+    eq = (a[:, :, None] == lv).astype(jnp.int8)
+    lt = (a[:, :, None] < lv).astype(jnp.int8)
+    return (eq + lt * jnp.int8(-128)).reshape(n, 16 * m)
 
 
-def _tri_comb_kernel(oht_ref, ct_ref, eq_ref, gt_ref):
-    k = pl.program_id(2)
-
-    @pl.when(k == 0)
-    def _():
-        eq_ref[0] = jnp.zeros_like(eq_ref[0])
-        gt_ref[0] = jnp.zeros_like(gt_ref[0])
-    partial = jax.lax.dot_general(oht_ref[:], ct_ref[:],
-                                  (((0,), (0,)), ((), ())),
-                                  preferred_element_type=jnp.int32)
-    t = (jnp.int32(127) - partial) >> 7
-    gt_ref[0] += t
-    eq_ref[0] += partial + (t << 7)
-
-
-@functools.partial(jax.jit, static_argnames=("bm", "bk", "T", "interpret"))
-def _tri_comb_call(oht, ct, *, bm: int, bk: int, T: int, interpret: bool):
-    K, N = oht.shape
-    H = T // 2
-    P = H * (T + 1)
-
-    def row(u, v):
-        return jax.lax.select(v <= u, u, T - 1 - u)
-
-    def col(u, v):
-        return jax.lax.select(v <= u, v, v - u - 1)
-
-    return pl.pallas_call(
-        _tri_comb_kernel,
-        grid=(H, T + 1, K // bk),
-        in_specs=[
-            pl.BlockSpec((bk, bm), lambda u, v, k: (k, row(u, v))),
-            pl.BlockSpec((bk, bm), lambda u, v, k: (k, col(u, v))),
-        ],
-        out_specs=[pl.BlockSpec((1, bm, bm),
-                                lambda u, v, k: (u * (T + 1) + v, 0, 0))] * 2,
-        out_shape=[jax.ShapeDtypeStruct((P, bm, bm), jnp.int32)] * 2,
-        compiler_params=pltpu.CompilerParams(vmem_limit_bytes=32 << 20),
-        interpret=interpret,
-    )(oht, ct)
-
-
-@functools.lru_cache(maxsize=16)
-def _tri_pair_slot(T: int) -> np.ndarray:
-    """slot[bi, bj] = output index p for lower-triangle pair (bi >= bj)."""
-    H = T // 2
-    slot = np.full((T, T), -1, np.int64)
-    for u in range(H):
-        for v in range(T + 1):
-            if v <= u:
-                slot[u, v] = u * (T + 1) + v
-            else:
-                slot[T - 1 - u, v - u - 1] = u * (T + 1) + v
-    return slot
-
-
-def _tri_assemble_counts(eq_t, gt_t, T: int, m: int):
-    """Tiles -> full (eq, gt, lt) matrices. Lower blocks come from the
-    tiles; upper from trichotomy on the transposed mirror tile
-    (gt(i,j) = lt(j,i) = m - eq(j,i) - gt(j,i))."""
-    slot = _tri_pair_slot(T)
-    rows_eq, rows_gt = [], []
-    for bi in range(T):
-        cols_eq, cols_gt = [], []
-        for bj in range(T):
-            if bi >= bj:
-                p = int(slot[bi, bj])
-                cols_eq.append(eq_t[p])
-                cols_gt.append(gt_t[p])
-            else:
-                p = int(slot[bj, bi])
-                cols_eq.append(eq_t[p].T)
-                cols_gt.append(jnp.int32(m) - eq_t[p].T - gt_t[p].T)
-        rows_eq.append(jnp.concatenate(cols_eq, axis=1))
-        rows_gt.append(jnp.concatenate(cols_gt, axis=1))
-    eq = jnp.concatenate(rows_eq, axis=0)
-    gt = jnp.concatenate(rows_gt, axis=0)
-    return eq, gt
-
-
-def _tri_eq_kernel(oht_ref, ohb_ref, eq_ref):
-    k = pl.program_id(2)
-
-    @pl.when(k == 0)
-    def _():
-        eq_ref[0] = jnp.zeros_like(eq_ref[0])
-    eq_ref[0] += jax.lax.dot_general(oht_ref[:], ohb_ref[:],
-                                     (((0,), (0,)), ((), ())),
-                                     preferred_element_type=jnp.int32)
-
-
-@functools.partial(jax.jit, static_argnames=("bm", "bk", "T", "interpret"))
-def _tri_eq_call(oht, *, bm: int, bk: int, T: int, interpret: bool):
-    K, N = oht.shape
-    H = T // 2
-    P = H * (T + 1)
-
-    def row(u, v):
-        return jax.lax.select(v <= u, u, T - 1 - u)
-
-    def col(u, v):
-        return jax.lax.select(v <= u, v, v - u - 1)
-
-    return pl.pallas_call(
-        _tri_eq_kernel,
-        grid=(H, T + 1, K // bk),
-        in_specs=[
-            pl.BlockSpec((bk, bm), lambda u, v, k: (k, row(u, v))),
-            pl.BlockSpec((bk, bm), lambda u, v, k: (k, col(u, v))),
-        ],
-        out_specs=pl.BlockSpec((1, bm, bm),
-                               lambda u, v, k: (u * (T + 1) + v, 0, 0)),
-        out_shape=jax.ShapeDtypeStruct((P, bm, bm), jnp.int32),
-        compiler_params=pltpu.CompilerParams(vmem_limit_bytes=32 << 20),
-        interpret=interpret,
-    )(oht, oht)
-
-
-def eq_nibble_tri_self(a_nib: jnp.ndarray, bm: int = 0) -> jnp.ndarray:
-    """Full (N, N) eq count matrix for self-pairs via the triangular
-    one-hot matmul — ONE int8 matmul per lower block pair, no decode
-    (the --fastcmp --bbit-sigs b-bit estimator consumes eq only). Upper
-    blocks are the mirrored tiles transposed (eq is symmetric)."""
-    n, m = a_nib.shape
-    bm = bm or _TRI_BM
-    bk = min(_TRI_BK, 16 * m)
-    T = -(-n // bm)
-    if T % 2:
-        T += 1
-    npad = T * bm
-    if npad != n:
-        a_nib = jnp.concatenate(
-            [a_nib, jnp.zeros((npad - n, m), a_nib.dtype)])
-    oht = enc_onehot_T(a_nib)
-    with jax.enable_x64(False):
-        eq_t = _tri_eq_call(oht, bm=bm, bk=bk, T=T,
-                            interpret=not _on_tpu())
-    slot = _tri_pair_slot(T)
-    rows = []
-    for bi in range(T):
-        cols = []
-        for bj in range(T):
-            if bi >= bj:
-                cols.append(eq_t[int(slot[bi, bj])])
-            else:
-                cols.append(eq_t[int(slot[bj, bi])].T)
-        rows.append(jnp.concatenate(cols, axis=1))
-    return jnp.concatenate(rows, axis=0)[:n, :n]
+def _pair_block(u, v, T: int):
+    """Grid cell (u < T/2, v <= T) -> lower-triangle block pair (bi, bj).
+    Block rows u and T-1-u together hold T+1 pairs, so the static (T/2,
+    T+1) grid covers every bi >= bj exactly once. Works on numpy and
+    traced integers alike."""
+    hi = (v > u) * 1
+    return u + hi * (T - 1 - 2 * u), v - hi * (u + 1)
 
 
 @functools.lru_cache(maxsize=16)
 def tri_pair_blocks(T: int) -> Tuple[np.ndarray, np.ndarray]:
-    """(ii, jj) block coordinates for output slot p (inverse of
-    _tri_pair_slot): slot p holds the lower-triangle pair
-    (ii[p] >= jj[p])."""
-    slot = _tri_pair_slot(T)
+    """(ii, jj) block coordinates of output slot p = u * (T+1) + v."""
+    p = np.arange((T // 2) * (T + 1))
+    return _pair_block(p // (T + 1), p % (T + 1), T)
+
+
+def _tri_kernel(a_ref, b_ref, out_ref, *, T: int, bm: int, tb: int,
+                bk: int, chunk: int):
+    p = pl.program_id(0)
+    bi, bj = _pair_block(p // (T + 1), p % (T + 1), T)
+    r0 = pl.multiple_of(bi * bm + pl.program_id(1) * tb, tb)
+    c0 = pl.multiple_of(bj * bm + pl.program_id(2) * tb, tb)
+    zero = jnp.zeros((tb, tb), jnp.int32)
+
+    def step(kk, part):
+        k0 = pl.multiple_of(kk * bk, bk)
+        a = a_ref[pl.ds(r0, tb), pl.ds(k0, bk)]
+        b = b_ref[pl.ds(c0, tb), pl.ds(k0, bk)]
+        return part + jax.lax.dot_general(
+            a, b, (((1,), (1,)), ((), ())),
+            preferred_element_type=jnp.int32)
+
+    nk = a_ref.shape[1] // bk
+    per = chunk // bk
+
+    def chunk_step(c, acc):
+        part = jax.lax.fori_loop(c * per, (c + 1) * per, step, zero)
+        g = (jnp.int32(127) - part) >> 7
+        # eq_c = part + 128 g; packed accumulator eq + (gt << 16)
+        return acc + part + g * jnp.int32(128 + 65536)
+
+    out_ref[...] = jax.lax.fori_loop(0, nk // per, chunk_step, zero)
+
+
+@functools.partial(jax.jit, static_argnames=("T", "bm", "interpret"))
+def _tri_call(oh, ct, *, T: int, bm: int, interpret: bool):
+    """(P, bm, bm) i32 tiles eq + (gt << 16) over the lower block pairs
+    of the (Npad, K) one-hot x (Npad, K) combined-encoding product."""
+    K = oh.shape[1]
+    tb = min(_TB, bm)
+    bk = min(_BK, K)
+    chunk = min(_CHUNK, K)
     P = (T // 2) * (T + 1)
-    ii = np.empty(P, np.int64)
-    jj = np.empty(P, np.int64)
-    for bi in range(T):
-        for bj in range(bi + 1):
-            p = int(slot[bi, bj])
-            ii[p] = bi
-            jj[p] = bj
-    return ii, jj
+    s = bm // tb
+    kern = functools.partial(_tri_kernel, T=T, bm=bm, tb=tb, bk=bk,
+                             chunk=chunk)
+    return pl.pallas_call(
+        kern,
+        grid=(P, s, s),
+        out_specs=pl.BlockSpec((None, tb, tb),
+                               lambda p, i, j: (p, i, j)),
+        out_shape=jax.ShapeDtypeStruct((P, bm, bm), jnp.int32),
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(num_warps=_WARPS,
+                                                num_stages=_STAGES),
+        interpret=interpret,
+        name="tri_nibble_counts",
+    )(oh, ct)
 
 
-def tri_counts_tiles(a_nib: jnp.ndarray, want_gtlt: bool, bm: int = 0):
-    """Tile-level triangular engine: returns
-    (eq_t, gt_t or None, T, bm, npad) with eq_t/gt_t (P, bm, bm) i32
-    covering every lower-triangle block pair once. The fused production
-    path applies the measure epilogue PER TILE and assembles the f32
-    matrix directly (no full count-matrix materialization)."""
+def _tri_shape(n: int, bm: int) -> Tuple[int, int]:
+    T = -(-n // bm)
+    T += T % 2
+    return T, T * bm
+
+
+def tri_counts_tiles(a_nib: jnp.ndarray, bm: int = 0):
+    """Triangular self-pairs engine at tile level: returns (eq_t, gt_t,
+    T, bm, npad) with eq_t/gt_t (P, bm, bm) i32 covering every
+    lower-triangle block pair once (slot order of tri_pair_blocks). The
+    fused production path applies the measure epilogue PER TILE and
+    assembles the f32 matrix directly."""
     n, m = a_nib.shape
     bm = bm or _TRI_BM
-    bk = min(_TRI_BK, 16 * m)
-    T = -(-n // bm)
-    if T % 2:
-        T += 1
-    npad = T * bm
+    T, npad = _tri_shape(n, bm)
     if npad != n:
         a_nib = jnp.concatenate(
             [a_nib, jnp.zeros((npad - n, m), a_nib.dtype)])
-    oht = enc_onehot_T(a_nib)
     with jax.enable_x64(False):
-        if want_gtlt:
-            ct = enc_combined_T(a_nib)
-            eq_t, gt_t = _tri_comb_call(oht, ct, bm=bm, bk=bk, T=T,
-                                        interpret=not _on_tpu())
-        else:
-            eq_t = _tri_eq_call(oht, bm=bm, bk=bk, T=T,
-                                interpret=not _on_tpu())
-            gt_t = None
-    return eq_t, gt_t, T, bm, npad
+        acc = _tri_call(enc_onehot(a_nib), enc_combined(a_nib), T=T,
+                        bm=bm, interpret=INTERPRET)
+    return acc & jnp.int32(0xFFFF), acc >> 16, T, bm, npad
 
 
-def tri_assemble_f32(low_tiles, upper_src_tiles, T: int, bm: int):
-    """(P, bm, bm) f32 tiles -> full (npad, npad) f32 matrix; the upper
-    triangle comes from upper_src_tiles transposed per tile."""
-    slot = _tri_pair_slot(T)
+def tri_assemble(low_tiles, upper_src_tiles, T: int, bm: int):
+    """(P, bm, bm) tiles -> full (npad, npad) matrix; the upper triangle
+    comes from upper_src_tiles transposed per tile."""
+    ii, jj = tri_pair_blocks(T)
+    slot = {(int(i), int(j)): p for p, (i, j) in enumerate(zip(ii, jj))}
     rows = []
     for bi in range(T):
         cols = []
         for bj in range(T):
             if bi >= bj:
-                cols.append(low_tiles[int(slot[bi, bj])])
+                cols.append(low_tiles[slot[bi, bj]])
             else:
-                cols.append(jnp.swapaxes(
-                    upper_src_tiles[int(slot[bj, bi])], 0, 1))
+                cols.append(jnp.swapaxes(upper_src_tiles[slot[bj, bi]],
+                                         0, 1))
         rows.append(jnp.concatenate(cols, axis=1))
     return jnp.concatenate(rows, axis=0)
 
 
 def tri_self_counts_available(n: int, m: int) -> bool:
-    """The tri engine needs a TPU, enough rows to beat the full-square
-    form's padding, and a k-chunking-compatible register count."""
-    return _on_tpu() and n > _TRI_BM and (m % 64 == 0 or m <= 64)
+    """Shapes the triangular engine takes: enough rows to beat the full
+    square's padding, whole 128-wide contraction steps, 64-register
+    decode chunks, and gt < 2^15 in the packed accumulator."""
+    return (n > _TRI_BM and m < (1 << 15)
+            and (m % 64 == 0 or (m <= 64 and m % 8 == 0)))
 
 
 def counts_nibble_tri_self(a_nib: jnp.ndarray, bm: int = 0):
     """(eq, gt, lt) for all pairs of one unpacked nibble matrix (N, m)
-    via the triangular single-matmul MXU engine. Traceable (fixed pad
-    shape per N)."""
+    via the triangular combined-encoding kernel."""
     n, m = a_nib.shape
-    bm = bm or _TRI_BM
-    bk = min(_TRI_BK, 16 * m)
-    T = -(-n // bm)
-    if T % 2:
-        T += 1
-    npad = T * bm
-    if npad != n:
-        a_nib = jnp.concatenate(
-            [a_nib, jnp.zeros((npad - n, m), a_nib.dtype)])
-    oht = enc_onehot_T(a_nib)
-    ct = enc_combined_T(a_nib)
-    with jax.enable_x64(False):
-        eq_t, gt_t = _tri_comb_call(oht, ct, bm=bm, bk=bk, T=T,
-                                    interpret=not _on_tpu())
-    eq, gt = _tri_assemble_counts(eq_t, gt_t, T, m)
-    eq = eq[:n, :n]
-    gt = gt[:n, :n]
+    eq_t, gt_t, T, bm, _ = tri_counts_tiles(a_nib, bm)
+    eq = tri_assemble(eq_t, eq_t, T, bm)[:n, :n]
+    gt = tri_assemble(gt_t, jnp.int32(m) - eq_t - gt_t, T, bm)[:n, :n]
     return eq, gt, jnp.int32(m) - eq - gt
 
 
-# ----------------------------------------------------------------------
-# MXU one-hot path for nibble registers
-# ----------------------------------------------------------------------
-
 @functools.partial(jax.jit, static_argnames=("want_gtlt",))
-def _nibble_mxu(a_nib: jnp.ndarray, b_nib: jnp.ndarray, want_gtlt: bool):
-    """a_nib/b_nib: (N, m) uint8 register values in [0, 16)."""
-    n, m = a_nib.shape
-    levels = jnp.arange(16, dtype=jnp.uint8)
-    a_oh = (a_nib[:, :, None] == levels).astype(jnp.int8).reshape(n, m * 16)
-    b_oh = (b_nib[:, :, None] == levels).astype(jnp.int8).reshape(-1, m * 16)
+def nibble_dots(a_nib: jnp.ndarray, b_nib: jnp.ndarray, want_gtlt: bool):
+    """(eq, gt, lt) i32 counts for unpacked nibble registers (N, m) x
+    (M, m), values in [0, 16), via full-square int8 one-hot dots
+    (exact)."""
+    m = a_nib.shape[1]
+    a_oh = enc_onehot(a_nib)
     eq = jax.lax.dot_general(
-        a_oh, b_oh, (((1,), (1,)), ((), ())),
+        a_oh, enc_onehot(b_nib), (((1,), (1,)), ((), ())),
         preferred_element_type=jnp.int32)
     if not want_gtlt:
         return eq, eq, eq
-    # cumlt[j, r, v] = [b[j, r] < v]  ->  gt = A_onehot . cumlt^T
-    b_lt = (b_nib[:, :, None] < levels).astype(jnp.int8).reshape(-1, m * 16)
+    lv = jnp.arange(16, dtype=jnp.uint8)
+    b_lt = (b_nib[:, :, None] < lv).astype(jnp.int8).reshape(
+        b_nib.shape[0], 16 * m)
     gt = jax.lax.dot_general(
         a_oh, b_lt, (((1,), (1,)), ((), ())),
         preferred_element_type=jnp.int32)
-    lt = m - eq - gt
-    return eq, gt, lt
-
-
-def counts_nibble_mxu(a_nib, b_nib, want_gtlt: bool = True):
-    """(eq, gt, lt) i32 counts for unpacked nibble registers via int8
-    matmuls on the MXU (exact)."""
-    eq, gt, lt = _nibble_mxu(jnp.asarray(a_nib, dtype=jnp.uint8),
-                             jnp.asarray(b_nib, dtype=jnp.uint8),
-                             want_gtlt)
-    return eq, gt, lt
+    return eq, gt, m - eq - gt

@@ -10,7 +10,7 @@ Reference semantics being reproduced:
 
 * CSetSketch (src/setsketch.h:276-602): the reference streams items through
   a sequential early-exit loop (exponential spacings + lazy Fisher-Yates +
-  max-tree). The TPU formulation exploits the distributional identity:
+  max-tree). The device formulation exploits the distributional identity:
   randomly permuting the ascending exponential spacings of one item gives
   m i.i.d. Exp(1) values, so an item's register draws are i.i.d. Exp(1)
   with minimum x1 ~ Exp(m) at a uniform register. We therefore
@@ -69,13 +69,11 @@ def oph_sketch_segments(hashed: jnp.ndarray, valid: jnp.ndarray,
     idx = (ids % jnp.uint64(m)).astype(jnp.int32)
     seg = seq_ids.astype(jnp.int32) * m + idx
     seg = jnp.where(valid, seg, nseqs * m)
-    # Sort-based segmented min. TPU scatters (jax.ops.segment_min) are
-    # scalar-unit bound (~30x slower than sort at 2M elements): sort the
-    # stream by id then stably by segment, so each segment's run starts
-    # at its minimum; first-occurrence lookup is a searchsorted gather.
+    # Sort-based segmented min: sort the stream by id then stably by
+    # segment, so each segment's run starts at its minimum;
+    # first-occurrence lookup is a searchsorted gather.
     S = nseqs * m
     # one two-key lexicographic sort; payloads ride the sort network
-    # (argsort + fancy-index gathers are scalar-unit bound on TPU)
     seg_s, ids_s = jax.lax.sort((seg, ids), num_keys=2)
     n = seg_s.shape[0]
     want = jnp.arange(S, dtype=seg_s.dtype)
@@ -104,11 +102,10 @@ def oph_sketch_rows_scatter(hashed: jnp.ndarray, valid: jnp.ndarray, *,
                             want_counts: bool = True
                             ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Row-wise OPH via ONE flat segment_min scatter over (row, bucket)
-    segments — bit-identical to oph_sketch_rows. XLA lowers TPU
-    scatters to a scalar-unit serial loop, trading the dense engine's
-    O(nk*m) vector work for O(nk) serial updates; which wins is
-    shape-dependent (experiments/r3_oph_scatter.py measures it).
-    Select with DASHING2_TPU_OPH_ENGINE=scatter."""
+    segments — bit-identical to oph_sketch_rows. Trades the dense
+    engine's O(nk*m) vector work for O(nk) scattered updates; which
+    wins on the GPU is not measured. Select with
+    DASHING2_TPU_OPH_ENGINE=scatter."""
     ids = DH.oph_hash(hashed, seed)
     R, nk = ids.shape
     idx = (ids % jnp.uint64(m)).astype(jnp.int32)
@@ -217,9 +214,7 @@ def oph_rows_engine() -> str:
     segment path), 'native', 'dense' (bucket-one-hot), 'dense2' (split
     hi/lo u32 passes), 'sort' (per-row rotation sort), or 'scatter'
     (segment_min). All bit-identical; they differ in where they run and
-    what they cost to compile (the dense engine's one-time XLA compile
-    measured 77-150 s on the remote v5e vs 15 s for sort —
-    experiments/R3_RESULTS.md §7)."""
+    what they cost to compile (GPU costs not measured)."""
     import os
     return os.environ.get("DASHING2_TPU_OPH_ENGINE", "auto")
 
@@ -369,9 +364,9 @@ def oph_sketch_rows_rot(hashed: jnp.ndarray, valid: jnp.ndarray, *,
     pass 1's per-(position, bucket) work is ONE u32 subtract + ONE u32
     min: no bucket-index compare, no select, no u64 emulation. The
     dense engine pays ~8 lane-ops per position-bucket, dense2 ~7,
-    this 2 (+3 in the lo pass) — the sketch phase is pure VPU-op-bound
-    (ops/position-bucket x nk x m / lane rate; experiments/r4_sketch.py),
-    so the op count IS the wall time.
+    this 2 (+3 in the lo pass) — the sketch phase is vector-op-bound
+    (ops/position-bucket x nk x m / lane rate), so the op count sets
+    the wall time.
 
     Pass 2 recovers the LOW u32 among positions whose high word equals
     pass 1's winner (hi equality implies bucket membership since the
@@ -416,10 +411,8 @@ def oph_sketch_rows_rot(hashed: jnp.ndarray, valid: jnp.ndarray, *,
     min_hi = jnp.where(empty, U32MAX, colbase[None, :] + dmin)
 
     # pass 2/3 run with 4 independent accumulator trees over the
-    # position axis: the single min/sum accumulator is a serial VPU
-    # dependency chain, and splitting it measures 10.6 -> 9.0 ms/batch
-    # at (256, 32768, m=1024) (experiments/r4s3_rot_issue.py; pass 1's
-    # reduce is insensitive). min/sum are associative, so the split is
+    # position axis: a single min/sum accumulator is a serial
+    # dependency chain. min/sum are associative, so the split is
     # bit-identical.
     acc = 4 if chunk % 4 == 0 else 1
 
@@ -729,7 +722,7 @@ def _countsketch_device(hv: jnp.ndarray, cssize: jnp.ndarray):
     run boundaries mark distinct buckets. Returns (sorted bucket ids
     i32, inclusive sign cumsum i32, run-end mask bool) — the host
     extracts per-bucket sums as diffs of the cumsum at run ends (O(K)
-    numpy), avoiding both TPU scatters and a cssize-dense buffer."""
+    numpy), avoiding both device scatters and a cssize-dense buffer."""
     idx = (hv % cssize.astype(jnp.uint64)).astype(jnp.int32)
     sign = jnp.where((hv & jnp.uint64(1)).astype(bool),
                      jnp.int32(1), jnp.int32(-1))

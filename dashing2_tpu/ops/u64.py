@@ -1,7 +1,7 @@
-"""64-bit unsigned integer arithmetic as u32 limb pairs for TPU kernels.
+"""64-bit unsigned integer arithmetic as u32 limb pairs for device kernels.
 
-TPU compute units are 32-bit; XLA emulates u64, but Pallas/Mosaic kernels
-need explicit 32-bit limb arithmetic. A u64 array is represented as a pair
+XLA emulates u64 on 32-bit vector units; kernels that want explicit
+control use 32-bit limb arithmetic. A u64 array is represented as a pair
 ``(hi, lo)`` of ``uint32`` arrays of equal shape. All shift amounts and
 multiplier constants are Python ints (static), which lets each helper emit
 the minimal op sequence.

@@ -42,9 +42,8 @@ def _gtlt_block(a: jnp.ndarray, b: jnp.ndarray, tm: int = 16
     scanning row tiles of a to bound the broadcast intermediate.
 
     u64 inputs compare exactly via (hi, lo) u32 limb pairs; float inputs
-    compare directly (used by the multichip dryrun — TPU's X64-rewrite
-    pass cannot lower an f64->u64 bitcast, so float signatures stay
-    floats there)."""
+    compare directly (used by the multichip dryrun, whose signatures
+    stay floats)."""
     na = a.shape[0]
     if jnp.issubdtype(a.dtype, jnp.floating):
         parts_a, parts_b = (a,), (b,)
@@ -282,9 +281,8 @@ def sharded_pipeline_step(mesh: Mesh, hashed: jnp.ndarray,
         seg = jnp.where(v, sid * m + idx, nseqs * m)
         regs = jax.ops.segment_min(ids, seg, num_segments=nseqs * m + 1)
         regs = regs[:nseqs * m].reshape(nseqs, m)
-        # min-merge partial registers across devices. TPU all-reduce only
-        # lowers sum, so all-gather over ICI then reduce locally (the
-        # gathered tensor is tiny: D x nseqs x m u64).
+        # min-merge partial registers across devices: all-gather then
+        # reduce locally (the gathered tensor is tiny: D x nseqs x m u64).
         gathered = jax.lax.all_gather(regs, axis_name="rows")
         return jnp.min(gathered, axis=0)
 
@@ -301,6 +299,5 @@ def sharded_pipeline_step(mesh: Mesh, hashed: jnp.ndarray,
         mul * jnp.log(delta.astype(jnp.float64) * (2.0 ** -64)))
     cards = (m * m) / jnp.maximum(
         (regs.astype(jnp.float64) * 2.0 ** -64).sum(axis=1), 1e-300)
-    # signatures stay f64 and compare directly (an f64->u64 bitcast is not
-    # lowerable by the TPU X64-rewrite pass; float compares are)
+    # signatures stay f64 and compare directly
     return sharded_similarity(mesh, sigs, cards.astype(jnp.float32))

@@ -2,9 +2,9 @@
 
 The reference is single-node shared-memory only — it has NO distributed
 backend (SURVEY §2.4: no MPI/NCCL/Gloo anywhere in the tree), so this is
-a new first-class component designed TPU-first:
+a new first-class component:
 
-* one jax.distributed process per host, a 1-D global mesh over all chips;
+* one jax.distributed process per host, a 1-D global mesh over all devices;
 * inputs are sharded across hosts by size-descending round-robin (the
   LPT schedule the reference uses across OpenMP threads,
   src/sketch_core.cpp:175-184, lifted to hosts);

@@ -96,7 +96,7 @@ def pairwise_equality_compare(input_matrix: np.ndarray,
     per-pair equal-register counts, row-major upper triangle — the
     layout scipy.spatial.distance.squareform expands.
 
-    TPU-native: rows flow through the tiled device count_eq_self engine
+    Rows flow through the tiled device count_eq_self engine
     (ops/cmp_kernels) instead of a per-row python loop; `nthreads` is
     accepted for signature compatibility (device kernels ignore it)."""
     assert isinstance(input_matrix, np.ndarray), "expected a numpy array"

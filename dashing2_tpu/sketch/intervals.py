@@ -6,7 +6,7 @@ weight 1 or 1/(stop-start) with --normalize-intervals), src/bwsketch.cpp
 per sample column; items are splice-site string hashes weighted by counts,
 optionally normalized by denominators).
 
-TPU design: interval -> per-base item expansion is pure iota arithmetic
+Device design: interval -> per-base item expansion is pure iota arithmetic
 (SURVEY §2 bedsketch note) done in bounded slabs; sketching reuses the
 same OPH/CSetSketch/weighted kernels as the FASTX path. The chromosome
 string hash is FNV-1a finished with a Wang mix (the reference uses
@@ -278,11 +278,10 @@ def sketch_bigwig(opts: Dashing2Options, groups: Sequence[str]
                   ) -> SketchingResult:
     """BigWig coverage tracks: items chrhash^pos weighted by track value
     (bwsketch.cpp:112-119). With --by-chrom, one entry per chromosome is
-    appended per file (sketch_core.cpp:65-94). Streaming + vectorized
-    (round 5): blocks decode straight to numpy arrays and feed the
-    sketcher one slab at a time — multi-GB tracks run under an
-    O(block + slab) memory envelope (measured in
-    experiments/r5_bigwig_stream.py)."""
+    appended per file (sketch_core.cpp:65-94). Streaming + vectorized:
+    blocks decode straight to numpy arrays and feed the sketcher one
+    slab at a time — multi-GB tracks run under an O(block + slab)
+    memory envelope."""
     from ..io.bigwig import BigWigReader
     names: List[str] = []
     rows: List[np.ndarray] = []

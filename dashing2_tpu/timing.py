@@ -51,8 +51,8 @@ def phase(name: str, verbosity: int = 0, min_level: int = 1):
 
 # ----------------------------------------------------------------------
 # span accumulator: named wall-clock totals across a run, so bench
-# harnesses (bench_e2e northstar) can publish a per-phase breakdown
-# (VERDICT r4 item 2). Always on — the spans wrap per-batch/per-block
+# harnesses (bench_e2e northstar) can publish a per-phase breakdown.
+# Always on — the spans wrap per-batch/per-block
 # work, thousands of perf_counter() pairs at most.
 # ----------------------------------------------------------------------
 

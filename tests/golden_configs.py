@@ -1,6 +1,6 @@
 """Golden-output configurations: frozen artifacts pinning the exact
-output bytes of every major mode (VERDICT item: per-mode parity
-declaration with frozen goldens). Regenerate with
+output bytes of every major mode (per-mode parity declaration with
+frozen goldens). Regenerate with
 `python tests/gen_goldens.py` ONLY when a documented semantic deviation
 changes; any other diff is a regression.
 

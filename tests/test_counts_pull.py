@@ -15,8 +15,8 @@ from dashing2_tpu.enums import Measure
 from dashing2_tpu.result import SketchingResult
 
 # SIMILARITY only: the card-dependent measures divide by per-pair
-# runtime values and the TPU f32 divide is not IEEE-identical
-# (experiments/r4s3_counts_pull_diag.py) — they keep the f32 route
+# runtime values and a device f32 divide need not be IEEE-identical —
+# they keep the f32 route
 MEASURES = [Measure.SIMILARITY]
 
 
@@ -49,7 +49,7 @@ def _byte_equal(a, b):
 @pytest.fixture(autouse=True)
 def _route_env(monkeypatch):
     # single-logical-device routing (the mesh keeps the f32 route) and
-    # the SWAR engines (the production TPU route) on the CPU backend
+    # the SWAR engines (the production GPU route) on the CPU backend
     monkeypatch.setenv("DASHING2_TPU_MULTICHIP", "0")
     monkeypatch.setenv("DASHING2_TPU_KERNEL", "swar")
 
@@ -153,8 +153,8 @@ def test_non_sim_and_ab_stay_on_f32_route(monkeypatch):
     # positive control: the eligible combo takes the route under force
     assert C._counts_pull_on("full", Measure.SIMILARITY, 64)
     assert C._counts_pull_on("eqfull", Measure.SIMILARITY, 64)
-    # card-dependent measures (TPU divide is not IEEE-identical,
-    # measured 1-1024 ulp on chip) and the gt/lt-consuming ab kinds
+    # card-dependent measures (a device divide need not be
+    # IEEE-identical) and the gt/lt-consuming ab kinds
     # never take the route
     for msr in (Measure.POISSON_LLR, Measure.CONTAINMENT,
                 Measure.INTERSECTION, Measure.SYMMETRIC_CONTAINMENT,

@@ -2,7 +2,7 @@
 
 The reference compares exact k-mer sets / count-dicts streamed from
 their cache files when not RAM-resident (cmp_core.cpp:518-572,
-wcompare.cpp:145-187 FILE variant). These tests pin the TPU-framework
+wcompare.cpp:145-187 FILE variant). These tests pin this framework's
 analogue: DiskSortedSet chunked merges are exact vs a numpy oracle,
 byte-identical to the RAM route end-to-end, and bounded-memory.
 """

@@ -10,6 +10,20 @@ from dashing2_tpu.config import Dashing2DistOptions
 from dashing2_tpu.parallel import distributed as D
 
 
+def _worker_env():
+    """Environment of a dist_worker.py subprocess: one CPU device, and the
+    repo root on its import path (the worker runs as a script, so its
+    own directory, tests/, is all Python would search)."""
+    import os
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    env["JAX_PLATFORMS"] = "cpu"
+    env["PYTHONPATH"] = os.pathsep.join(
+        [root] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                  if p])
+    return env
+
+
 @pytest.fixture(scope="module")
 def fixtures(tmp_path_factory):
     d = tmp_path_factory.mktemp("fa_dist")
@@ -103,8 +117,7 @@ def test_two_process_jax_distributed(fixtures, tmp_path):
         port = s.getsockname()[1]
     out = str(tmp_path / "dist.bin")
     here = os.path.dirname(__file__)
-    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
-    env["JAX_PLATFORMS"] = "cpu"
+    env = _worker_env()
     procs = [subprocess.Popen(
         [sys.executable, os.path.join(here, "dist_worker.py"),
          str(pid), "2", str(port), out] + list(fixtures),
@@ -202,8 +215,7 @@ def test_two_process_distributed_knn(fixtures, tmp_path):
         port = s.getsockname()[1]
     out = str(tmp_path / "dk")
     here = os.path.dirname(__file__)
-    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
-    env["JAX_PLATFORMS"] = "cpu"
+    env = _worker_env()
     env["D2_WORKER_MODE"] = "knn"
     procs = [subprocess.Popen(
         [sys.executable, os.path.join(here, "dist_worker.py"),
@@ -273,8 +285,7 @@ def test_two_process_distributed_dedup(fixtures, tmp_path):
         port = s.getsockname()[1]
     out = str(tmp_path / "dd")
     here = os.path.dirname(__file__)
-    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
-    env["JAX_PLATFORMS"] = "cpu"
+    env = _worker_env()
     env["D2_WORKER_MODE"] = "dedup"
     procs = [subprocess.Popen(
         [sys.executable, os.path.join(here, "dist_worker.py"),

@@ -267,7 +267,7 @@ def test_dedup_batched_rounds_match_serial(fixtures, tmp_path):
 
 
 def test_dedup_chunk_size_invariance_uncapped(tmp_path, monkeypatch):
-    """VERDICT r4 item 8: in the UNCAPPED regime (per-item candidate
+    """In the UNCAPPED regime (per-item candidate
     cap not binding) the clustering is invariant across
     DASHING2_TPU_DEDUP_CHUNK — a clustered 64-item corpus (8 families
     x 8 mutated copies) produces the identical (ids, constituents)

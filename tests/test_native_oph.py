@@ -383,9 +383,8 @@ def test_native_files_driver_missing_path(tmp_path, monkeypatch):
 
 
 def test_auto_device_engine_resident_routing(monkeypatch):
-    """VERDICT r4 item 10: 'auto' device dispatch resolves to the
-    rot engine inside a resident worker (compiles amortize; measured
-    18.0 ms vs sort's 28.3 per batch) and to cheap-compile sort in
+    """'auto' device dispatch resolves to the rot engine inside a
+    resident worker (compiles amortize) and to cheap-compile sort in
     one-shot processes."""
     from dashing2_tpu.sketch.core import _auto_device_engine
     monkeypatch.delenv("DASHING2_TPU_RESIDENT", raising=False)

@@ -1,7 +1,7 @@
 """Fused panel (Q x F) engine vs the generic blocked path, bit-exact.
 
-The round-3 _panel_matrix_fn routes nq > 0 jobs through the rectangular
-SWAR/MXU count engines with a shared rank space; DASHING2_TPU_KERNEL=
+_panel_matrix_fn routes nq > 0 jobs through the rectangular
+SWAR/one-hot count engines with a shared rank space; DASHING2_TPU_KERNEL=
 swar forces that route on CPU so both paths run here."""
 
 import os

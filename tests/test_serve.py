@@ -144,7 +144,7 @@ def test_warm_only_flag_runs_standalone(capsys):
 
 def test_serve_warm_startup(tmp_path):
     """`serve --warm 'cmp --warm-only N ...'` precompiles at startup,
-    then serves jobs normally (VERDICT r4 item 3)."""
+    then serves jobs normally."""
     sock = str(tmp_path / "warm.sock")
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"

@@ -172,8 +172,7 @@ def test_device_block_counts_match_host(kind_opts, exact, monkeypatch):
     """The generic row-block path (N > SELF_MAX) with the fused device
     SWAR block engine forced must match the host block path. Counts are
     bit-identical by construction; the f32 epilogue now runs INSIDE the
-    device program (round 4: the host numpy epilogue cost ~29 s/block
-    at n=32768), so for the a/b-quantized kinds — whose g_b complement
+    device program, so for the a/b-quantized kinds — whose g_b complement
     recurrence chains contractible steps and transcendental calls — the
     XLA and numpy graphs may differ by ~10 ulps (README deviations; the
     same envelope as the swar/xla routing fuzz below). full/bbit
@@ -314,11 +313,10 @@ def test_containment_mirror_tiles(kind, dtype, fd):
 
 
 def test_swar_pack_mode_policy():
-    """Tile-engine pack policy is measurement-pinned (r3_pack10: the
-    3-per-word pack10 engines lose to the 16-bit halves on tile jobs —
-    gt+lt 111.7 ms vs 61.2 ms at N=10240; r4_probes: the byte-packed
-    derived-guard gt8+neq8 beats both at 52.2 ms for u8 a/b). Guard the
-    routing so a refactor doesn't silently reintroduce slower modes."""
+    """Tile-engine pack policy: the 16-bit halves (not the 3-per-word
+    pack10 engines) for mid-size ranks, the byte-packed derived-guard
+    gt8+neq8 for u8 a/b. Guard the routing so a refactor doesn't
+    silently change the engines."""
     rng = np.random.default_rng(21)
     m = 64
 

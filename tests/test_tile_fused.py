@@ -25,18 +25,17 @@ def test_tile_fused_matches_full(monkeypatch, kind, msr):
 
     import jax.numpy as jnp
 
-    # full-square reference (the default off-TPU route)
-    fn_full = C._self_matrix_fn(kind, m, msr, 21, 0.5)
+    # full-square reference (the plain XLA route)
+    fn_full = C._self_matrix_fn_m(kind, m, msr, 21, 0.5, "xla")
     ref = np.asarray(fn_full(jnp.asarray(packed), jnp.asarray(cards), b,
                              jnp.asarray(gbt), gbinv))
 
-    # force the tile-fused route (interpret-mode kernels, small blocks
-    # so the interpreter stays fast)
-    monkeypatch.setattr(PC, "tri_self_counts_available",
-                        lambda nn, mm: True)
+    # the tile-fused route (kernel in the Pallas interpreter, small
+    # blocks so the interpreter stays fast)
+    monkeypatch.setattr(PC, "INTERPRET", True)
     monkeypatch.setattr(PC, "_TRI_BM", 128)
     C._self_matrix_fn.cache_clear()
-    fn_tile = C._self_matrix_fn(kind, m, msr, 21, 0.5)
+    fn_tile = C._self_matrix_fn_m(kind, m, msr, 21, 0.5, "tri")
     got = np.asarray(fn_tile(jnp.asarray(packed), jnp.asarray(cards), b,
                              jnp.asarray(gbt), gbinv))
     C._self_matrix_fn.cache_clear()

@@ -76,14 +76,14 @@ def _estimator_reps(fn, rng, weights_a, weights_b, m, reps):
 
 
 def test_estimator_variance_matches_ertl_bound():
-    """VERDICT r4 item 6 (measured justification): the per-register
+    """Measured justification: the per-register
     collision probability of the ICWS/PMH1 engines is exactly J_W/J_P
     with i.i.d. registers, so the m-register equality-fraction
     estimator must have variance J(1-J)/m — the same bound Ertl proves
     for BagMinHash (Alg. family, IEEE TKDE 2020, Sec. 3) and
     ProbMinHash (Thm 2). Measured over 48 independent repetitions; the
     chi-square 99.9% envelope for the sample variance at df=47 is
-    [0.45, 1.9]x. experiments/r5_weighted_memo.md records a larger run."""
+    [0.45, 1.9]x."""
     rng = np.random.default_rng(12)
     n_items, m, reps = 200, 256, 48
     wa = rng.gamma(2.0, 2.0, size=n_items)
@@ -146,7 +146,7 @@ def test_batched_rows_equal_per_item_calls():
 
 
 def test_batched_1024_items_fast():
-    """VERDICT round-2 item 5: a 1024-item weighted corpus must sketch
+    """A 1024-item weighted corpus must sketch
     in bounded time through the batched engine (was a per-item dispatch
     loop)."""
     import time
